@@ -1,4 +1,4 @@
-"""Annchor: TPU-native approximate k-NN graphs for slow metrics.
+"""Annchor: accelerator-native approximate k-NN graphs for slow metrics.
 
 This is the top-level orchestrator, a ground-up JAX/XLA re-design of
 the reference pipeline (reference annchor/annchor.py:21-940):
@@ -54,7 +54,7 @@ class Annchor:
     func: callable, Metric or string — the metric. Supported strings:
         euclidean, sqeuclidean, cosine, levenshtein,
         wasserstein (exact EMD; requires cost_matrix kwarg),
-        wasserstein_sinkhorn (TPU entropic OT; requires cost_matrix).
+        wasserstein_sinkhorn (device entropic OT; requires cost_matrix).
     func_kwargs: dict of metric kwargs.
     n_anchors, n_neighbors, n_samples, p_work: budget knobs; p_work is
         the fraction of brute-force metric calls we may spend.
@@ -77,7 +77,7 @@ class Annchor:
         candidate set.  0 reproduces the reference flow.  Split only
         when the fit is *coverage-limited* (tight pair caps /
         selective filters): with full candidate coverage the
-        re-targeted in-fit evals beat post-hoc expansion (SCALE.md).
+        re-targeted in-fit evals beat post-hoc expansion (ROADMAP.md).
 
     Knobs left unset (None) resolve to the reference defaults at
     reference scales (nx <= 4096) and to the measured tuning law on
@@ -121,7 +121,7 @@ class Annchor:
         # Scale-aware defaults (None = unset): at reference scales
         # (nx <= 4096) every knob resolves to the reference default,
         # so behavior is identical; on the scale path the defaults
-        # follow the measured tuning law (SCALE.md: more anchors =
+        # follow the measured tuning law (ROADMAP.md tuning laws: more anchors =
         # fewer candidate pairs at the same filter coverage —
         # na ~ 0.3*sqrt(nx); a selective loc_thresh=3 filter; four
         # budget iterations; 5% of p_work held back for post-fit
@@ -198,7 +198,7 @@ class Annchor:
         # redirected at the near-misses the in-fit ranking leaves)
         self.refine_frac = float(np.clip(refine_frac, 0.0, 0.9))
         self.refine_rounds = int(refine_rounds)
-        # scale-path pair-budget knobs (SCALE.md): explicit per-point
+        # scale-path pair-budget knobs (ROADMAP.md tuning laws): explicit per-point
         # candidate cap, derived-cap factor (cap = max(4*nn,
         # factor * p_work * nx * mesh)), and the resident-pair bound
         # past which non-metric fits auto-switch to the budgeted
@@ -221,6 +221,7 @@ class Annchor:
         self._IJs = None
         self._ij_dev = None  # device-built pair list (scale path)
         self._dev = None  # device-resident state (ops.device_pipeline)
+        self._pair_build = None  # which candidate-pair builder ran
         self._dev_eval = None  # device-id metric eval (fused pipeline)
         self._S_raw = None  # lazy locality by-products (S/sid/loc_eff)
         self._sid_raw = None
@@ -468,7 +469,7 @@ class Annchor:
             # pair budget (ANNCHOR_TPU_PAIR_CAP per-point candidates)
             # the two-pass streaming build bounds resident pairs by the
             # budgeted set, lifting the single-chip HBM wall that caps
-            # coverage at nx ~ 10^5 (SCALE.md).
+            # coverage at nx ~ 10^5 on a 16 GB card.
             # env wins even at 0 (docs/parameters.md: the variable is
             # the sweep override) — `or` would let a falsy 0 fall
             # through to the ctor kwarg and sweep the wrong config
@@ -489,6 +490,7 @@ class Annchor:
                     self.D, self.locality, self.loc_thresh,
                     self.loc_min, pair_cap, verbose=self.verbose,
                 )
+                self._pair_build = "device-budgeted"
             elif self.is_metric and not os.environ.get(
                 "ANNCHOR_TPU_NO_PAIR_BUDGET"
             ):
@@ -496,9 +498,9 @@ class Annchor:
                 # cap matched to the refine budget: keeping each
                 # point's 0.7 * p_work * nx smallest-lower-bound
                 # candidates concentrates every per-pair pass on pairs
-                # the budget could ever refine.  Measured (SCALE.md):
-                # identical eval counts, equal-or-better recall, and
-                # up to ~11x faster fits than the uncapped build —
+                # the budget could ever refine.  Measured (ROADMAP.md
+                # tuning laws): identical eval counts, equal-or-better
+                # recall, and faster fits than the uncapped build —
                 # the lb-ranked discard loses almost no truth in a
                 # metric space.  ANNCHOR_TPU_NO_PAIR_BUDGET=1 restores
                 # the admit-everything build.
@@ -524,6 +526,7 @@ class Annchor:
                     self.D, self.locality, self.loc_thresh,
                     self.loc_min, auto_cap, verbose=self.verbose,
                 )
+                self._pair_build = "device-budgeted"
             else:
                 # non-metric fits (triangle lb invalid as a ranking
                 # signal): admit everything the filter keeps; the
@@ -559,6 +562,7 @@ class Annchor:
                     self.loc_min, verbose=self.verbose,
                     max_resident=max_res, budget_cap=auto_cap,
                 )
+                self._pair_build = "device"
             self._IJs = None
             self._ij_dev = (ij_i, ij_j, m)
             self._P_idx = None  # device pipeline builds its own
@@ -566,6 +570,7 @@ class Annchor:
             self.IJs, self.sid, self.S, self.loc_eff = candidate_pairs(
                 self.D, self.locality, self.loc_thresh, self.loc_min
             )
+            self._pair_build = "host"
             if self._device_pipeline_ok():
                 # the device pipeline builds its own incidence matrix;
                 # the host copy stays lazy (P_idx property) — skipping

@@ -72,8 +72,8 @@ def _batch_eval(metric):
 def _blocked_rows(ev, X, Z, row_ids, n_cols, block, verbose):
     """Full distance rows through a batched evaluator, `block` rows
     per call: one call per row would pay a dataset upload and a
-    blocking download per row (minutes of pure relay overhead at
-    scale); one call per block pays them once per `block` rows."""
+    blocking download per row (minutes of pure overhead at scale);
+    one call per block pays them once per `block` rows."""
     from annchor_tpu.progress import progress
 
     row_ids = np.asarray(row_ids, dtype=np.int64)

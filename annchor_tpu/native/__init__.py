@@ -1,15 +1,20 @@
 """ctypes bindings for the host-side native kernels.
 
-The shared library is compiled on first import (g++, cached next to the
-source).  This mirrors the reference's reliance on JIT-compiled native
-code (numba LLVM kernels, reference annchor/utils.py:274-621) without
-requiring any pre-built wheel.
+The shared library is compiled from the tracked source on first use
+(g++) into ``_build/``, under a name keyed on a hash of the source, the
+compiler flags and the host architecture, so a library built for
+another source or another machine is never loaded: a key mismatch
+builds anew.  This mirrors the reference's reliance on JIT-compiled
+native code (numba LLVM kernels, reference annchor/utils.py:274-621)
+without requiring any pre-built wheel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
@@ -17,7 +22,9 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "annchor_native.cpp")
-_LIB = os.path.join(_HERE, "_annchor_native.so")
+_BUILD_DIR = os.path.join(_HERE, "_build")
+# portable flags: no -march=native, so the key needs no CPU model
+_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 _lock = threading.Lock()
 _lib = None
 
@@ -26,32 +33,31 @@ class NativeBuildError(RuntimeError):
     pass
 
 
-def _build() -> None:
-    cmd = [
-        "g++",
-        "-O3",
-        "-march=native",  # compiled on first import, on this host
-        "-std=c++17",
-        "-shared",
-        "-fPIC",
-        "-pthread",
-        "-o",
-        _LIB,
-        _SRC,
-    ]
-    fallback = [c for c in cmd if c != "-march=native"]
+def build_key(src: str = _SRC) -> str:
+    """Hash of the source, the flags and the host architecture."""
+    h = hashlib.sha256()
+    with open(src, "rb") as fh:
+        h.update(fh.read())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(platform.machine().encode())
+    return h.hexdigest()[:16]
+
+
+def lib_path(src: str = _SRC) -> str:
+    return os.path.join(_BUILD_DIR, f"annchor_native-{build_key(src)}.so")
+
+
+def _build(out: str) -> None:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = ["g++", *_FLAGS, "-o", tmp, _SRC]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
     except FileNotFoundError as e:  # no g++
         raise NativeBuildError("g++ not available") from e
-    except subprocess.CalledProcessError:
-        try:  # some toolchains reject -march=native (e.g. cross builds)
-            subprocess.run(fallback, check=True, capture_output=True,
-                           text=True)
-        except subprocess.CalledProcessError as e:
-            raise NativeBuildError(
-                f"native build failed:\n{e.stderr}"
-            ) from e
+    except subprocess.CalledProcessError as e:
+        raise NativeBuildError(f"native build failed:\n{e.stderr}") from e
+    os.replace(tmp, out)  # atomic: concurrent builders never see half
 
 
 def get_lib():
@@ -62,11 +68,10 @@ def get_lib():
     with _lock:
         if _lib is not None:
             return _lib
-        if (not os.path.exists(_LIB)) or (
-            os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
-        ):
-            _build()
-        lib = ctypes.CDLL(_LIB)
+        path = lib_path()
+        if not os.path.exists(path):
+            _build(path)
+        lib = ctypes.CDLL(path)
 
         lib.emd_single.restype = ctypes.c_double
         lib.emd_single.argtypes = [

@@ -8,10 +8,10 @@ pair (i, j) and any point y with both d(i,y) and d(j,y) known,
 
 The reference walks per-point sorted lists with a two-pointer
 intersection in numba and a 10 s wall-clock bailout (reference
-annchor/annchor.py:475-512, utils.py:304-352).  The TPU formulation is
+annchor/annchor.py:475-512, utils.py:304-352).  The device formulation is
 dense: scatter computed distances into an (nx, nc) matrix E with a
 validity mask and reduce each pending pair's two gathered rows — pure
-VPU work, chunked over pairs.  For large nx the pseudo-anchor columns
+vector work, chunked over pairs.  For large nx the pseudo-anchor columns
 are subsampled by computed-degree (any column subset still yields
 valid bounds), keeping memory bounded.
 """

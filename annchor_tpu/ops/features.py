@@ -3,7 +3,7 @@
 Replaces the reference's numba kernels `get_bounds_njit_ijs`
 (annchor/utils.py:274-301), `get_dad_ijs` (annchor/utils.py:355-380)
 and their query-side variants (annchor/query_functions.py:70-129) with
-fused, vectorised gather+reduce ops that XLA maps onto the TPU VPU.
+fused, vectorised gather+reduce ops that XLA compiles for the device.
 Per-pair work is O(n_anchors) and fully data-parallel, so this is pure
 jit/vmap — no Pallas needed (SURVEY.md §7 step 2).
 """
@@ -105,9 +105,10 @@ def anchor_membership(D, locality: int):
 @jax.jit
 def shared_anchor_counts(S, S_other=None):
     """counts[i, j] = number of shared near-anchors — a binary matmul
-    that runs on the MXU (replaces the nx× masked-sum loop in reference
+    on the matrix units (replaces the nx× masked-sum loop in reference
     utils.py:469-471)."""
     St = S if S_other is None else S_other
+    # 0/1 operands, f32 sums: exact at default (TF32) precision
     return jax.lax.dot_general(
         S,
         St,

@@ -1,9 +1,9 @@
-"""Batched Levenshtein (edit-distance) kernels for TPU.
+"""Batched Levenshtein (edit-distance) row-DP kernels.
 
 The reference implementation evaluates edit distance one pair at a time
 through the python-Levenshtein C extension fanned out over joblib worker
 processes (reference: annchor/distances.py:16-20, annchor/utils.py:152-177).
-On TPU the same workload is re-designed as a *batched* dynamic-programming
+Here the same workload is re-designed as a *batched* dynamic-programming
 kernel: many pairs are evaluated simultaneously, with the classic row
 recurrence
 
@@ -17,14 +17,14 @@ minimum:
     D[i,j] = j + cummin_{k<=j}(t_k - k)
 
 which is exact (induction on j) and turns every DP row into pure
-vector ops + one ``lax.cummin`` — ideal for the TPU VPU.  The row loop
+vector ops + one ``lax.cummin``.  The row loop
 runs only to the longest *shorter* string in the batch (pairs are
 swapped so rows always walk the shorter string), so length-bucketing
 the pair list directly reduces work.
 
-A Pallas version that keeps the entire DP state resident in VMEM lives
-in ``levenshtein_pallas.py``; this module is the portable XLA
-formulation used as its oracle and as the CPU/interpret fallback.
+The bit-parallel Myers kernels (``levenshtein_myers.py``) replace
+this tier whenever the alphabet is small enough; this one serves huge
+alphabets.
 """
 
 from __future__ import annotations
@@ -44,9 +44,8 @@ def _cummin_log(x):
     """Prefix minimum along axis 1 via a log-shift (Hillis–Steele)
     scan: ceil(log2(n)) shifted elementwise mins.
 
-    Mathematically identical to ``lax.cummin`` but compiles orders of
-    magnitude faster on TPU (cummin's generic scan lowering is
-    pathological to compile for wide rows).
+    Mathematically identical to ``lax.cummin``, whose generic scan
+    lowering was pathological to compile for wide rows.
     """
     n = x.shape[1]
     k = 1
@@ -66,7 +65,7 @@ def encode_strings(strings, pad_to_multiple: int = 128):
     -------
     codes: np.ndarray int32, shape (n, L)
         Unicode codepoints, padded with -1.  L is the maximum string
-        length rounded up to ``pad_to_multiple`` (TPU lane alignment).
+        length rounded up to ``pad_to_multiple`` (bounds compiled shapes).
     lengths: np.ndarray int32, shape (n,)
     """
     n = len(strings)

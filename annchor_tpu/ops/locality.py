@@ -7,8 +7,8 @@ guarantees at least `loc_min` candidates per point, and a final
 symmetrisation (reference annchor/annchor.py:208-256,
 annchor/utils.py:437-491).
 
-TPU formulation: the shared-anchor count matrix is a binary matmul
-S @ S.T (MXU-native); the symmetrised candidate test collapses to
+Device formulation: the shared-anchor count matrix is a binary matmul
+S @ S.T on the matrix units; the symmetrised candidate test collapses to
 
     counts[i, j] >= min(eff[i], eff[j])          (i < j)
 
@@ -59,6 +59,7 @@ def _decode_packed(packed_u32, nx, row_off=0):
 def _block_kth(S, S_block, loc_min: int, locality: int, mask_cols=None):
     """Per-row (loc_min+1)-th largest shared-anchor count for a block
     of rows, via the integer-histogram trick."""
+    # 0/1 operands, f32 sums: exact at default (TF32) precision
     counts = jax.lax.dot_general(
         S_block,
         S,
@@ -80,6 +81,7 @@ def _block_keep_packed(S, S_block, eff_block, eff_all, row_off):
     keep[i, j] = counts[i, j] >= min(eff[i], eff[j]) and j > i.
     Returns uint32 (B, nx/32) with bit b of word w = column 32w+b.
     """
+    # 0/1 operands, f32 sums: exact at default (TF32) precision
     counts = jax.lax.dot_general(
         S_block,
         S,
@@ -122,7 +124,7 @@ def effective_thresholds(
         _, codes = np.unique(np.asarray(label_neq), return_inverse=True)
         y_dev = jnp.asarray(codes.astype(np.int32))
     # uniform block shapes: one compile per kernel, not one per
-    # remainder block (compiles are expensive on remote TPU setups)
+    # remainder block
     nblk = min(block, nx)
     eff = np.zeros(nx, dtype=np.float32)
     for s in range(0, nx, nblk):
@@ -160,6 +162,8 @@ def _fused_locality(D32, locality: int, loc_min: int, loc_thresh: int):
     S = jnp.zeros((nx, na), dtype=jnp.float32)
     rows = jnp.broadcast_to(jnp.arange(nx)[:, None], sid.shape)
     S = S.at[rows, sid].set(1.0)
+
+    # 0/1 operands, f32 sums: exact at default (TF32) precision
 
     counts = jax.lax.dot_general(
         S, S,
@@ -308,6 +312,7 @@ def candidate_pairs(
 def _block_keep_total(S, S_block, eff_block, eff_all, row_off):
     """Population count of the symmetrised keep mask for a row block
     (first pass of the device-side pair-list builder)."""
+    # 0/1 operands, f32 sums: exact at default (TF32) precision
     counts = jax.lax.dot_general(
         S_block, S,
         dimension_numbers=(((1,), (1,)), ((), ())),
@@ -332,6 +337,7 @@ def _block_keep_extract(S, S_block, eff_block, eff_all, row_off, cap: int):
     device: flatnonzero with a static capacity (bucketed so only a few
     distinct shapes ever compile).  Rows beyond the true count carry
     fill index 0 and are sliced off by the caller."""
+    # 0/1 operands, f32 sums: exact at default (TF32) precision
     counts = jax.lax.dot_general(
         S_block, S,
         dimension_numbers=(((1,), (1,)), ((), ())),
@@ -526,8 +532,8 @@ def _keep_counts(keep, ij_i, ij_j, nx_arr):
 # jnp.flatnonzero(size=...) lowers to cumsum + a bincount SCATTER over
 # every element of the band mask (~4e8 updates per 4096-row band at
 # nx=1e5), and the per-pair histogram / count folds are scatters too —
-# profiled as the build's bottleneck on TPU
-# (benchmarks/profile_budget_build.py).  The dense twins below compute
+# profiled as the build's bottleneck on the first accelerator this ran
+# on (benchmarks/profile_budget_build.py).  The dense twins below compute
 # the SAME math (same f32 triangle lower bounds, same binning, same
 # bin-conservative threshold rule, same int counts) with reductions
 # only, so results are bit-identical to the pair-fold kernels above:
@@ -551,20 +557,23 @@ def _band_score(Db, Dc, score: str):
     """(B, C) ranking score panel for a band-vs-chunk pair block.
 
     "linf": the triangle lower bound max_k |D_i,k - D_j,k| — a dense
-    (B, C, na) broadcast on the VPU, the budgeted build's measured
-    wall at nx >= 5e5 (~11 s per 4096-row band, SCALE.md).
+    (B, C, na) elementwise broadcast, the budgeted build's wall at
+    nx >= 5e5 when last profiled.
     "rms": sqrt(mean_k (D_i,k - D_j,k)^2) — the same [0, 2*Dmax]
     range (rms <= linf <= 2*Dmax) but in matmul form
-    (|a|^2 + |b|^2 - 2ab) so the na reduction rides the MXU; ~na x
-    less VPU work per band.  The cap then ranks candidates by RMS
+    (|a|^2 + |b|^2 - 2ab) so the na reduction rides the matrix units;
+    ~na x less elementwise work per band.  The cap then ranks candidates by RMS
     anchor-profile difference instead of the provable bound — a
     different (not bit-identical) tracked set; recall parity is
-    validated by benchmark before use (SCALE.md)."""
+    validated by benchmark before use."""
     if score == "rms":
         na = Db.shape[1]
+        # full f32: |a|^2 + |b|^2 - 2ab cancels worst on the nearest
+        # pairs, which TF32's 10-bit mantissa would misrank
         cross = jax.lax.dot_general(
             Db, Dc,
             dimension_numbers=(((1,), (1,)), ((), ())),
+            precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=jnp.float32,
         )
         sq_r = jnp.sum(Db * Db, axis=1)
@@ -596,6 +605,7 @@ def _band_bins_sym(
     def body(c, out):
         c0 = c * cchunk
         Sc = jax.lax.dynamic_slice(S, (c0, 0), (cchunk, S.shape[1]))
+        # 0/1 operands, f32 sums: exact at default (TF32) precision
         counts = jax.lax.dot_general(
             Sb, Sc,
             dimension_numbers=(((1,), (1,)), ((), ())),
@@ -663,6 +673,7 @@ def _band_keep2_dense(
     def body(c, keep):
         c0 = c * cchunk
         Sc = jax.lax.dynamic_slice(S, (c0, 0), (cchunk, S.shape[1]))
+        # 0/1 operands, f32 sums: exact at default (TF32) precision
         counts = jax.lax.dot_general(
             Sb, Sc,
             dimension_numbers=(((1,), (1,)), ((), ())),
@@ -795,6 +806,7 @@ class _ShardedBudgetedBuild:
             S_rows, (row_off, 0), (self.nblk, self.na)
         )
         eb = jax.lax.dynamic_slice(eff_rows, (row_off,), (self.nblk,))
+        # 0/1 operands, f32 sums: exact at default (TF32) precision
         counts = jax.lax.dot_general(
             Sb, S,
             dimension_numbers=(((1,), (1,)), ((), ())),
@@ -1079,7 +1091,7 @@ def candidate_pairs_device_budgeted(
     eff_j = jnp.asarray(eff)
     D32 = jnp.asarray(np.asarray(D), dtype=jnp.float32)
     # cap-ranking score: "linf" (default) = triangle lower bound;
-    # "rms" = MXU matmul form (see _band_score) — opt-in via env for
+    # "rms" = matmul form (see _band_score) — opt-in via env for
     # the single-chip scale path (the sharded pair-fold twins compute
     # linf, so rms + multi-chip falls back with a note)
     score = os.environ.get("ANNCHOR_TPU_BUILD_SCORE", "linf")
@@ -1123,10 +1135,9 @@ def candidate_pairs_device_budgeted(
         )
 
     # ---- single-chip: dense band passes (reductions only) ------------
-    # jnp.flatnonzero / .at[].add lower to per-element SCATTERS on TPU
-    # (~80M updates/s measured, benchmarks/profile_budget_build.py), so
-    # the pair-fold formulation was scatter-bound at ~5.5 s per
-    # 4096-row band at nx=1e5.  The dense twins compute the same f32
+    # jnp.flatnonzero / .at[].add lower to per-element SCATTERS
+    # (benchmarks/profile_budget_build.py), so the pair-fold
+    # formulation was scatter-bound.  The dense twins compute the same f32
     # lower bounds, binning, threshold rule and int counts with matmuls
     # and reductions; the sharded build (above) keeps the pair-fold
     # kernels and the equality test pins the two implementations to
@@ -1159,9 +1170,9 @@ def candidate_pairs_device_budgeted(
         thr_b = _band_thr_from_bins(
             BINs, jnp.int32(per_point_cap), bin_w, nbins
         )
-        # blocking 1-element download: bounds in-flight BINs state to
-        # one band's (nblk, nxp) buffer
-        np.asarray(thr_b[:1])
+        # barrier: bounds in-flight BINs state to one band's
+        # (nblk, nxp) buffer
+        jax.block_until_ready(thr_b)
         thr_parts.append(thr_b)
     thr = jnp.concatenate(thr_parts)  # (nxp,); pad rows are +inf
 
@@ -1184,8 +1195,8 @@ def candidate_pairs_device_budgeted(
         P_cnt = _accum_band_counts(P_cnt, rowcnt, colcnt, np.int32(s))
         if kept == 0:
             continue
-        # per-row top-k extraction beats the flatnonzero scatter ~6x on
-        # TPU (profile_budget_build.py); it needs K >= the max per-row
+        # per-row top-k extraction beat the flatnonzero scatter when
+        # last profiled (profile_budget_build.py); it needs K >= the max per-row
         # count, so fall back to flatnonzero when rows are so heavy the
         # top_k would scan most of the row anyway.  The extraction
         # sorts/scans a dense (rows, nxp) int panel — unlike the bins /
@@ -1236,6 +1247,7 @@ def _block_enemy_packed(
     already in the main candidate set (reference annchor.py:713-733,
     computed here blocked on device so no (nx, nx) host matrix ever
     materialises)."""
+    # 0/1 operands, f32 sums: exact at default (TF32) precision
     counts = jax.lax.dot_general(
         S_block, S,
         dimension_numbers=(((1,), (1,)), ((), ())),
@@ -1326,6 +1338,7 @@ def _query_block_packed(SX, Sq_block, loc_thresh):
     """Bit-packed query-candidate mask for a block of queries:
     keep[q, j] = shared-anchor count >= loc_thresh.  uint32
     (B, nx/32) with bit b of word w = database column 32w+b."""
+    # 0/1 operands, f32 sums: exact at default (TF32) precision
     counts = jax.lax.dot_general(
         Sq_block,
         SX,

@@ -2,7 +2,7 @@
 
 The reference tracks the ragged per-point pair lists in numba typed
 Dicts (`get_IJs_from_check`, reference annchor/utils.py:494-540).  On
-TPU raggedness is hostile, so the one core data structure here is a
+an accelerator raggedness is hostile, so the one core data structure here is a
 *padded point-incidence matrix*:
 
     P_idx: int32 (nx, max_deg)  — indices into the flat pair array IJs,

@@ -1,15 +1,15 @@
 """Multi-chip fit pipeline: DeviceFitState stage programs as SPMD
 shard_map kernels over the 1-d ``pairs`` mesh axis.
 
-SURVEY.md §2.2 prescribes the TPU-native replacement for the
+SURVEY.md §2.2 prescribes the accelerator replacement for the
 reference's joblib/numba single-node parallelism (reference
 doc/parallelisation.rst:14-52): shard the candidate-pair axis over the
-ICI mesh and combine per-point reductions with collectives.  This
+device mesh and combine per-point reductions with collectives.  This
 module implements exactly that for the device-resident fit state
 (ops/device_pipeline.py):
 
 * per-pair state (lb/ub/dad/RA/ncm + pair endpoints) is sharded on its
-  leading axis — each chip holds m/s pairs resident in HBM, which is
+  leading axis — each device holds m/s pairs resident in its memory, which is
   what lifts the single-chip memory wall on the 100k+ scale path;
 * the point-incidence matrix P_idx is row-sharded (nx/s points per
   chip); per-point passes (k-th thresholds, guarantee marks, graph

@@ -9,7 +9,8 @@ reference likewise excludes numba JIT), then the full upper-triangle
 build is timed.  Exactness is asserted against an Annchor fit's
 0-error contract (strings) by comparing the graphs.
 
-Appends one JSON line per dataset to benchmarks/results/tpu_session.jsonl.
+Appends one JSON line per dataset to $ANNCHOR_BENCH_OUT/bench_brute.jsonl
+(default: bench_out/ in the repository).
 """
 
 import argparse
@@ -23,14 +24,19 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 RESULTS = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "results",
-    "tpu_session.jsonl",
+    os.environ.get(
+        "ANNCHOR_BENCH_OUT",
+        os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "bench_out"),
+    ),
+    "bench_brute.jsonl",
 )
 
 
 def emit(rec):
     line = json.dumps(rec)
     print(line, flush=True)
+    os.makedirs(os.path.dirname(RESULTS), exist_ok=True)
     with open(RESULTS, "a") as fh:
         fh.write(line + "\n")
 

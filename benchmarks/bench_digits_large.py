@@ -10,7 +10,7 @@ exact-EMD ground truth regenerated with the native solver) — workload
 class and budgets identical, images not bit-identical to upstream's.
 
 Default configuration is the scout/certify hybrid (exp-domain Sinkhorn
-exploration on the MXU, exact network-simplex certification); errors
+exploration on the device, exact network-simplex certification); errors
 are always counted against the exact ground truth.  Prints one JSON
 line.  `--exact` runs the pure exact-metric configuration.
 """
@@ -22,7 +22,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/annchor_tpu_xla_cache")
 
 BASELINE_S = 105.233  # reference doc/user_guide.rst:274
 BASELINE_ERRORS = 77

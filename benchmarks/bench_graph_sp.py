@@ -21,7 +21,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/annchor_tpu_xla_cache")
 
 import numpy as np  # noqa: E402
 

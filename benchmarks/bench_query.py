@@ -22,7 +22,6 @@ import sys
 import time
 from collections import Counter
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/annchor_tpu_xla_cache")
 
 import numpy as np  # noqa: E402
 

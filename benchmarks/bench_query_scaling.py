@@ -9,7 +9,7 @@ grows (batching amortises dispatches): the pass criterion is
 s/query at nq=5000 < s/query at nq=500.
 
 Runs on the CPU backend by default so it can execute anywhere; pass
---tpu to use the default (TPU) device.
+--device to use JAX's default device (the GPU).
 """
 
 from __future__ import annotations
@@ -19,8 +19,7 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/annchor_tpu_xla_cache")
-if "--tpu" not in sys.argv:
+if "--device" not in sys.argv:
     os.environ.setdefault(
         "XLA_FLAGS", "--xla_force_host_platform_device_count=8"
     )
@@ -34,7 +33,7 @@ def main():
     )
     import jax
 
-    if "--tpu" not in sys.argv:
+    if "--device" not in sys.argv:
         jax.config.update("jax_default_device", jax.devices("cpu")[0])
 
     import annchor_tpu as at

@@ -11,7 +11,8 @@ single-device and sharded — and records:
     share one physical CPU, so sharded wall time measures overhead,
     not speedup — the residency and coverage columns are the claim).
 
-Appends one JSON line to benchmarks/results/sharded_residency.jsonl.
+Appends one JSON line to $ANNCHOR_BENCH_OUT/sharded_residency.jsonl
+(default: bench_out/ in the repository).
 
 Usage:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
@@ -29,7 +30,11 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 RESULTS = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "results",
+    os.environ.get(
+        "ANNCHOR_BENCH_OUT",
+        os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "bench_out"),
+    ),
     "sharded_residency.jsonl",
 )
 
@@ -163,6 +168,7 @@ def main():
         }
         line = json.dumps(rec)
         print(line)
+        os.makedirs(os.path.dirname(RESULTS), exist_ok=True)
         with open(RESULTS, "a") as fh:
             fh.write(line + "\n")
         return
@@ -192,6 +198,7 @@ def main():
     }
     line = json.dumps(rec)
     print(line)
+    os.makedirs(os.path.dirname(RESULTS), exist_ok=True)
     with open(RESULTS, "a") as fh:
         fh.write(line + "\n")
 

@@ -1,11 +1,11 @@
 """Stage-level timing of the budgeted pair build's per-band kernels.
 
 The two-pass budgeted build (`ops/locality.py:
-candidate_pairs_device_budgeted`) is ~70% of the 100k build wall
-(283 s of 408 s measured, /tmp/q3g_100k.log).  This profiles each
+candidate_pairs_device_budgeted`) was most of the 100k build wall
+when last profiled.  This profiles each
 per-band kernel at the real 100k band shape on synthetic anchor
 features (no metric evals — D is random, the kernels only see the
-(nx, na) feature matrix), so one run attributes the 5.5 s/band cost.
+(nx, na) feature matrix), so one run attributes the per-band cost.
 
 Usage:  python benchmarks/profile_budget_build.py [--nx 100000]
 Prints one JSON line per stage: {"stage": ..., "best_s": ...,

@@ -21,15 +21,17 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/annchor_tpu_xla_cache")
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+CACHE = os.path.join(ROOT, ".cache")
 
 import numpy as np  # noqa: E402
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--index", type=str, default="/tmp/annchor_20k.npz")
+    ap.add_argument("--index", type=str,
+                    default=os.path.join(CACHE, "annchor_20k.npz"))
     ap.add_argument("--n", type=int, default=20000)
     ap.add_argument("--length", type=int, default=400)
     ap.add_argument("--clusters", type=int, default=32)
@@ -61,9 +63,10 @@ def main(argv=None):
     ann = at.Annchor.load(args.index, X, "levenshtein")
 
     qgt_path = (
-        f"/tmp/annchor_qgt_{args.n}_{args.nq}_{args.length}_"
+        f"{CACHE}/annchor_qgt_{args.n}_{args.nq}_{args.length}_"
         f"{args.clusters}_{args.seed}.npy"
     )
+    os.makedirs(CACHE, exist_ok=True)
     if os.path.exists(qgt_path):
         rows_q = np.load(qgt_path)
     else:
@@ -73,7 +76,7 @@ def main(argv=None):
     gtd = np.take_along_axis(rows_q, order, axis=1)
 
     # query-side tie ceiling (the fit side measured 12.5% of true
-    # edges in k-boundary tie groups, SCALE.md): per query, c edges
+    # edges in k-boundary tie groups, ROADMAP.md): per query, c edges
     # tie at the kth distance with T >= c equidistant candidates in
     # the population — any c of the T are equally correct, so a
     # uniform pick among them id-misses at rate c/k * (1 - c/T).

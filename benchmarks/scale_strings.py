@@ -2,7 +2,7 @@
 
 The reference tops out at 1600 strings (its headline benchmark); the
 BASELINE scale-up config targets 100k strings with anchor columns and
-pair batches sharded over a v5e-8 pod slice.  This script builds the
+pair batches sharded over several devices.  This script builds the
 graph for a configurable n on whatever devices are visible (one chip
 works; with >1 device the engines shard automatically) and prints one
 JSON line per run.
@@ -23,9 +23,10 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/annchor_tpu_xla_cache")
 # runnable as `python benchmarks/scale_strings.py` without installation
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+CACHE = os.path.join(ROOT, ".cache")
 
 import numpy as np  # noqa: E402
 
@@ -58,7 +59,7 @@ def main(argv=None):
     # columns + compare_neighbor_graphs over EVERY row (the
     # reference's own accuracy contract,
     # /root/reference/annchor/tests/test_annchor.py:95-102).
-    # Feasible to ~100k; the GT is cached per corpus in /tmp.
+    # Feasible to ~100k; the GT is cached per corpus in .cache/.
     ap.add_argument("--exact-gt", action="store_true")
     # per-point pair budget (constructor kwarg; 0 = derived default)
     ap.add_argument("--pair-cap", type=int, default=0)
@@ -86,7 +87,7 @@ def main(argv=None):
     # defaults (annchor.py) pick na/loc_thresh/niters/refine_frac —
     # the VERDICT r4 "defaults hit the frontier" verification
     ap.add_argument("--defaults", action="store_true")
-    # budgeted-build cap-ranking score (linf | rms); rms = MXU matmul
+    # budgeted-build cap-ranking score (linf | rms); rms = matmul form
     ap.add_argument("--build-score", type=str, default="")
     args = ap.parse_args(argv)
 
@@ -122,11 +123,12 @@ def main(argv=None):
         # full-population GT likewise: exact graph via blocked device
         # columns + in-program top-k, cached per corpus
         gt_path = (
-            f"/tmp/annchor_gt_{args.n}_{args.length}_{args.clusters}_"
+            f"{CACHE}/annchor_gt_{args.n}_{args.length}_{args.clusters}_"
             f"{args.mutation_rate}_{args.seed}_{args.k}"
             f"{'_q' + str(args.query_check) if args.query_check else ''}.npz"
         )
         t0 = time.perf_counter()
+        os.makedirs(CACHE, exist_ok=True)
         if os.path.exists(gt_path):
             z = np.load(gt_path)
             gt = (z["idx"], z["dist"])

@@ -1,7 +1,7 @@
 """Build the k-NN graph of the bundled 1600-string set (Levenshtein).
 
 The reference demonstrates this workload in its README (34.3 s on a
-quad-core i5); on one TPU v5e chip it builds in ~3 s.
+quad-core i5).
 
     python examples/strings_knn.py
 """

@@ -5,7 +5,7 @@ Mirrors the reference's Wasserstein notebook
 treated as a histogram over the pixel grid, compared with exact
 earth-mover's distance.  The reference wraps pynndescent's numba
 ``kantorovich``; here the exact solver is the in-repo C++ network
-simplex, and by default a Sinkhorn *scout* (pure MXU matvecs) does
+simplex, and by default a Sinkhorn *scout* (batched matvecs) does
 the exploration with the exact metric certifying the reported edges
 — same 0-error contract, a fraction of the exact-solver calls.
 

@@ -125,8 +125,8 @@ def test_strings_levenshtein_budget():
     # vs global mean ~30), so the absolute budget is calibrated to the
     # current pipeline (30-67 errors across seeds = ~1% of slots) as a
     # regression guard.  Reference parity on the real bundled set
-    # (budget <15; observed 0) is asserted by bench.py on TPU every
-    # round and by tests/test_strings_real.py (ANNCHOR_TPU_SLOW_TESTS).
+    # (budget <15) is asserted on the GPU by chip_smoke.py and by
+    # tests/test_strings_real.py (ANNCHOR_TPU_SLOW_TESTS).
     assert err < 80
     # spent roughly the budget, never wildly more
     assert ann.evals <= 1.4 * ann.p_work * ann.N + 2 * ann.n_samples
@@ -324,7 +324,7 @@ def test_tiny_dataset_exact_graph():
 
 def test_scale_aware_defaults():
     """Unset ctor knobs resolve to the reference defaults at reference
-    scales and to the measured tuning law (SCALE.md) on the scale
+    scales and to the measured tuning law (ROADMAP.md) on the scale
     path; explicit kwargs always win (the ctor-kwargs config
     contract, reference annchor.py:92-115)."""
     rng = np.random.default_rng(0)

@@ -307,11 +307,25 @@ def test_netsimplex_matches_ssp(rng):
         assert ns == pytest.approx(ssp, abs=1e-10)
 
 
+def _swapped(enc, I, J):
+    """Pairs pre-swapped so the pattern is the shorter string."""
+    import jax.numpy as jnp
+
+    la, lb = enc.lengths[I], enc.lengths[J]
+    sw = la > lb
+    return [
+        jnp.asarray(np.asarray(a, dtype=np.int32))
+        for a in (np.where(sw, J, I), np.where(sw, I, J),
+                  np.minimum(la, lb), np.maximum(la, lb))
+    ]
+
+
 def test_pallas_myers_matches_oracle(rng):
-    """The Pallas (W, T)-layout kernel in interpret mode against the
-    python oracle — same contract as the XLA Myers kernel."""
+    """The Triton-route Pallas kernel in interpret mode against the
+    python oracle — same contract as the XLA Myers kernel (empty
+    strings and an exact 33-char word boundary included)."""
     from annchor_tpu.ops.levenshtein_myers import MyersEncoding
-    from annchor_tpu.ops.levenshtein_pallas import pallas_myers_pairs
+    from annchor_tpu.ops.levenshtein_triton import triton_pairs
 
     strs = _random_strings(rng, 40, max_len=100, alphabet="abcdef")
     strs[0] = ""
@@ -320,17 +334,21 @@ def test_pallas_myers_matches_oracle(rng):
     enc = MyersEncoding.from_codes(codes, lengths)
     I = rng.integers(0, len(strs), size=300)
     J = rng.integers(0, len(strs), size=300)
-    got = pallas_myers_pairs(enc, I, J, block_size=1024)
     want = np.array([_py_lev(strs[i], strs[j]) for i, j in zip(I, J)])
-    np.testing.assert_array_equal(got, want)
+    _, planes_d, ids_d, _ = enc.device_arrays()
+    got = triton_pairs(
+        planes_d, ids_d, *_swapped(enc, I, J), interpret=True
+    )
+    np.testing.assert_array_equal(np.asarray(got), want)
 
 
 def test_pallas_matches_xla_myers(rng):
+    """The engine-facing host path with the Triton tier (interpret
+    mode) against the XLA tier, over several pair blocks."""
     from annchor_tpu.ops.levenshtein_myers import (
         MyersEncoding,
         myers_pairs,
     )
-    from annchor_tpu.ops.levenshtein_pallas import pallas_myers_pairs
 
     strs = _random_strings(rng, 64, max_len=200, alphabet="abcdefghij")
     codes, lengths = encode_strings(strs)
@@ -338,50 +356,42 @@ def test_pallas_matches_xla_myers(rng):
     I = rng.integers(0, 64, size=2100)
     J = rng.integers(0, 64, size=2100)
     np.testing.assert_array_equal(
-        pallas_myers_pairs(enc, I, J, block_size=1024),
+        myers_pairs(enc, I, J, block_size=1024, kernel="triton",
+                    interpret=True),
         myers_pairs(enc, I, J),
     )
 
 
 def test_pallas_tile_scales_with_shape(rng):
-    """The (W, T) tile must shrink as pattern width / text length
-    grow, or the double-buffered blocks blow the ~16 MB scoped VMEM
-    (regression: fixed T=1024 OOM'd at length >= 1600 on TPU).  The
-    tile stays a power of two so it always divides the TILE-padded
-    batches, and the kernel at a sub-maximal tile still matches the
-    XLA oracle (interpret mode exercises the same grid/block logic)."""
+    """Block size and padding at W ~ 56 words: batches that are not a
+    multiple of the kernel's TILE are padded and sliced back, the
+    table's word axis may be cut to the batch's widest pattern, and
+    long strings still match the XLA oracle."""
     from annchor_tpu.ops.levenshtein_myers import (
         MyersEncoding,
         myers_pairs,
     )
-    from annchor_tpu.ops.levenshtein_pallas import (
-        TILE,
-        _tile_for,
-        pallas_myers_pairs,
-    )
+    from annchor_tpu.ops.levenshtein_triton import TILE, triton_pairs
 
-    # measured shapes: headline keeps the full tile, long strings halve
-    assert _tile_for(2, 16, 448) == 1024
-    assert _tile_for(2, 56, 1792) == 512
-    assert _tile_for(2, 112, 3584) == 256
-    for K, W, L in [(2, 16, 448), (5, 40, 1200), (2, 400, 12800)]:
-        t = _tile_for(K, W, L)
-        assert 128 <= t <= TILE and TILE % t == 0
-        assert t & (t - 1) == 0  # power of two
-        # double-buffered blocks + ~6 state arrays fit the budget
-        # (above the 128-lane floor; past it the engine's try/except
-        # falls back to the XLA tier)
-        if t > 128:
-            assert t * 4 * (2 * (K * 2 * W + L) + 6 * W + 8) <= 13 << 20
-
-    # correctness at a sub-maximal tile: long strings, vs XLA Myers
-    strs = _random_strings(rng, 24, max_len=1700, alphabet="ab")
+    strs = _random_strings(rng, 24, max_len=1790, alphabet="ab")
+    strs[0] = "ab" * 895  # 1790 chars: W = 56 words
     codes, lengths = encode_strings(strs)
     enc = MyersEncoding.from_codes(codes, lengths)
-    assert _tile_for(1, enc.W, enc.ids.shape[1]) < TILE
-    I = rng.integers(0, 24, size=700)
-    J = rng.integers(0, 24, size=700)
-    np.testing.assert_array_equal(
-        pallas_myers_pairs(enc, I, J, block_size=1024),
-        myers_pairs(enc, I, J),
+    assert enc.W == 56
+    I = rng.integers(0, 24, size=TILE + 37)
+    J = rng.integers(0, 24, size=TILE + 37)
+    want = myers_pairs(enc, I, J)
+    _, planes_d, ids_d, _ = enc.device_arrays()
+    got = triton_pairs(
+        planes_d, ids_d, *_swapped(enc, I, J), interpret=True
     )
+    assert got.shape == (TILE + 37,)
+    np.testing.assert_array_equal(np.asarray(got), want)
+    # a word-sliced table serves batches whose patterns fit in it
+    short = np.flatnonzero(enc.lengths <= 32 * 8)
+    Is = rng.choice(short, size=50)
+    Js = rng.integers(0, 24, size=50)
+    got = triton_pairs(
+        planes_d[..., :8], ids_d, *_swapped(enc, Is, Js), interpret=True
+    )
+    np.testing.assert_array_equal(np.asarray(got), myers_pairs(enc, Is, Js))

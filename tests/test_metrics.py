@@ -122,31 +122,21 @@ def test_parallelisation_bad_backend(X):
         check_parallelisation(broken, m.scalar, X, len(X))
 
 
-def test_parallelisation_transient_retry(X, monkeypatch):
-    """A transient UNAVAILABLE (remote-relay blip) is retried with
-    backoff instead of aborting the run; a persistent one still
-    raises the actionable message."""
-    import time
-
-    monkeypatch.setattr(time, "sleep", lambda s: None)
+def test_parallelisation_transient_retry(X):
+    """A backend failure raises at once with the actionable message:
+    an UNAVAILABLE error is not retried (the evaluator runs once)."""
     m = get_function_from_input("euclidean", None)
     calls = {"n": 0}
 
-    def flaky(f, X, IJ):
+    def down(f, X, IJ):
         calls["n"] += 1
-        if calls["n"] == 1:
-            raise RuntimeError("UNAVAILABLE: TPU backend setup error")
-        return np.zeros(len(IJ))
+        raise RuntimeError("UNAVAILABLE: backend setup error")
 
-    out = check_parallelisation(flaky, m.scalar, X, len(X), s=20)
-    assert out.shape == (20,)
-    assert calls["n"] == 2
-
-    def always_down(f, X, IJ):
-        raise RuntimeError("UNAVAILABLE: TPU backend setup error")
-
-    with pytest.raises(RuntimeError, match="smoke test failed"):
-        check_parallelisation(always_down, m.scalar, X, len(X))
+    with pytest.raises(RuntimeError, match="smoke test failed") as info:
+        check_parallelisation(down, m.scalar, X, len(X), s=20)
+    assert calls["n"] == 1
+    assert "custom get_exact_ijs" in str(info.value)
+    assert "UNAVAILABLE" in str(info.value.__cause__)
 
 
 def test_parallelisation_bad_shape(X):

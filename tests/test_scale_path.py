@@ -785,7 +785,7 @@ def test_device_expand_screen_matches_host(_force_sparse):
 
 def test_rms_build_score(_force_sparse):
     """ANNCHOR_TPU_BUILD_SCORE=rms swaps the budgeted build's cap
-    ranking to the MXU matmul form.  At a huge cap the thresholds are
+    ranking to the matmul form.  At a huge cap the thresholds are
     +inf so the tracked set is bit-identical to linf; at a tight cap
     the build must still produce a sound, high-recall fit."""
     from sklearn.datasets import make_blobs

@@ -1,5 +1,5 @@
 """Multi-chip sharding tests on the 8-device virtual CPU mesh
-(SURVEY.md §2.2: pair batches sharded over the ICI mesh)."""
+(SURVEY.md §2.2: pair batches sharded over the device mesh)."""
 
 import numpy as np
 import pytest
